@@ -1,10 +1,10 @@
-"""Demonstrate the single-chip exact-path ceiling (VERDICT r3 item 4).
+"""Demonstrate the single-device exact-path ceiling.
 
-The `_auto_q_chunk` HBM model (models/lcgp.py:552-569) predicts the exact
-f64/mixed path caps near n~12-13k at small q (peak ~= (8*q_chunk + q) *
-n^2 * 8 bytes against a ~10 GB working-set budget; the chip has 15.75 GB).
-This script runs ONE end-to-end exact fit at that predicted cap —
-n=12288, q=2, p=100 borehole-style field — recording fit wall-clock,
+The `_auto_q_chunk` device-memory model (LCGP._q_peak_bytes: peak ~=
+(8*q_chunk + q) * n^2 * 8 bytes against _HBM_BUDGET_FRACTION of the
+device's bytes_limit) predicts where the exact f64/mixed path caps.  This
+script runs ONE end-to-end exact fit at a given n — default n=12288, q=2,
+p=100 borehole-style field — recording fit wall-clock,
 eval rate, predictive quality, and the XLA-compiled memory footprint of
 the loss+grad executable, turning the extrapolated ceiling into a
 measurement.  Reference scale anchor: its per-k eigh path
@@ -13,7 +13,8 @@ n=12k is far beyond anything it ships.
 
 Usage: python -u benchmarks/exact_ceiling.py [--cpu] [--n 12288]
          [--precision mixed] [--maxiter 30]
-(on CPU use --n 1024 for a smoke run; the full config is TPU-sized)
+(on CPU use --n 1024 for a smoke run; the full config needs an
+accelerator)
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def main():
     lowered = jax.jit(jax.value_and_grad(loss)).lower(m._free)
     try:
         compiled = lowered.compile()
-    except Exception as e:  # noqa: BLE001 — compile-time HBM exhaustion
+    except Exception as e:  # noqa: BLE001 — compile-time memory exhaustion
         msg = str(e)
         if 'RESOURCE_EXHAUSTED' not in msg and 'emory' not in msg:
             raise

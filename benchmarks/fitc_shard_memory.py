@@ -1,13 +1,13 @@
-"""Per-device memory table for the n-sharded FITC loss (round 4).
+"""Per-device memory table for the n-sharded FITC loss 
 
 The FITC working set is the (q, n, m) Woodbury panel (plus its autodiff
 residuals); parallel/fitc_shard splits the panel's rows across the mesh.
 This prints XLA's compiled per-SPMD-program memory for value_and_grad of
 the sharded loss on the virtual 8-device CPU mesh vs the single-device
-sparse path — the numbers that justify "the single-chip FITC n-ceiling
+sparse path — the numbers that justify "the single-device FITC n-ceiling
 scales linearly with the mesh".
 
-  PYTHONPATH=/root/repo python -u benchmarks/fitc_shard_memory.py [n ...]
+  PYTHONPATH=. python -u benchmarks/fitc_shard_memory.py [n ...]
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Per-device backward-memory table for the n-sharded loss (VERDICT r2 #1).
+"""Per-device backward-memory table for the n-sharded loss.
 
 Compares XLA's compiled memory stats for value_and_grad of the n-sharded
 full loss with the custom-VJP backward (closed-form gradient from the
@@ -6,7 +6,7 @@ saved distributed factor) vs plain autodiff through the unrolled
 distributed blocked Cholesky.  Runs on the virtual 8-device CPU mesh; the
 stats are per-SPMD-program, i.e. per device.
 
-  PYTHONPATH=/root/repo python -u benchmarks/nshard_memory.py [n ...]
+  PYTHONPATH=. python -u benchmarks/nshard_memory.py [n ...]
 """
 from __future__ import annotations
 

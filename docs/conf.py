@@ -37,7 +37,7 @@ source_suffix = {
 exclude_patterns = ["_build", "**.ipynb_checkpoints"]
 
 html_theme = "alabaster"
-html_title = "lcgp_tpu — TPU-native Latent Component GP"
+html_title = "lcgp_tpu — Latent Component GP in JAX"
 
 autodoc_member_order = "bysource"
 autodoc_typehints = "description"

@@ -20,7 +20,7 @@ with heteroskedastic noise (std 0.05 / 0.08 / 0.10)."""),
     ("code", """\
 import numpy as np
 import jax
-# run on CPU inside the notebook; flip to the TPU backend by removing this
+# run on CPU inside the notebook; use the accelerator by removing this
 jax.config.update('jax_platforms', 'cpu')
 
 from lcgp_tpu import LCGP, evaluation, datasets

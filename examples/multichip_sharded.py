@@ -66,7 +66,7 @@ def main():
           f'(stop: {fit_res.stop_reason})')
 
     # n-axis sharding: distributed blocked Cholesky over all devices.
-    # End-to-end through the model API (round 3): fit(mesh=...) runs the
+    # End-to-end through the model API: fit(mesh=...) runs the
     # distributed loss+grad with the memory-bounded custom-VJP backward,
     # and predict() runs the n-sharded aux/predict path.
     from lcgp_tpu.parallel import nshard
@@ -85,7 +85,7 @@ def main():
           f'{time.time() - t0:.2f}s; predict vs single-device max diff '
           f'{np.max(np.abs(yp - yp_ref)):.2e}')
 
-    # FITC + n-sharding (round 4): the (q, n, m) inducing-point Woodbury
+    # FITC + n-sharding: the (q, n, m) inducing-point Woodbury
     # panel distributes its rows over the same ('n',) mesh — exact same
     # estimator, per-device memory / GEMM time divided by the mesh size.
     model_f = LCGP(y=y, x=x, q=q, inducing=32)
@@ -101,11 +101,10 @@ def main():
           f'predict vs single-device max diff '
           f'{np.max(np.abs(ypf - ypf_ref)):.2e}')
 
-    # 2-D ('comp','n') mesh (round 4): q components shard over 'comp'
-    # groups, each group runs the distributed blocked Cholesky over its
-    # 'n' submesh — at pod scale this keeps the factorization's
-    # sequential panel loop at the n-axis size (32x8 on 256 chips -> 8
-    # panel steps, not 256).  Same API; exact and FITC paths both ride it.
+    # 2-D ('comp','n') mesh: q components shard over 'comp' groups, each
+    # group runs the distributed blocked Cholesky over its 'n' submesh —
+    # this keeps the factorization's sequential panel loop at the n-axis
+    # size (comp=2 x n=2 on 4 devices -> 2 panel steps, not 4).  Same API; exact and FITC paths both ride it.
     if len(jax.devices()) >= 4:
         ncmesh = nshard.make_nc_mesh(2, len(jax.devices()) // 2)
         model_c = LCGP(y=y, x=x, q=q)

@@ -1,4 +1,4 @@
-"""lcgp_tpu — TPU-native Latent Component Gaussian Process emulator.
+"""lcgp_tpu — Latent Component Gaussian Process emulator in JAX.
 
 Public API mirrors the reference package (reference src/lcgp/__init__.py):
 ``LCGP``, ``Matern32``, ``test``, plus the evaluation module and extras

@@ -7,15 +7,32 @@ unless the user opts out with ``LCGP_TPU_NO_X64=1``.
 
 Precision modes
 ---------------
-``'high'``  : float64 end-to-end (parity with the reference; TPU f64 is
-              software-emulated but still far faster than the CPU baseline).
+``'high'``  : float64 end-to-end (parity with the reference).
 ``'mixed'`` : f64 data/Gram/reductions with mixed-precision factorizations
-              (f32 Cholesky + f64-GEMM Newton refinement, ops/mixed.py) —
-              ~3.4x faster factor at n=4096 with ~1e-8 logdet error in the
-              moderate-conditioning regime.  Validated vs the f64 oracle;
-              see RESULTS.md.
+              (f32 Cholesky + f64-GEMM Newton refinement, ops/mixed.py).
+              Contract: the loss agrees with 'high' to ~1e-8 relative in
+              the moderate-conditioning regime (benchmarks/validate_mixed.py).
 ``'fast'``  : float32 Gram construction + factorizations with a jitter
-              floor — the large-n speed path on the MXU.
+              floor.
+
+Matmul precision
+----------------
+Unless told otherwise, an f32 matmul on an Ampere/Hopper GPU may run in
+TF32 (10-bit mantissa, ~3 decimal digits).  That silently downgrades every
+raw f32 GEMM of the 'fast' and 'mixed' paths (chol_inverse's syrk, predict
+recombinations, blocked trailing updates — a TF32-grade Schur update can
+break the PSD margin of a factorization target and NaN the factor), so the
+import pins ``jax_default_matmul_precision='float32'``: true f32 GEMMs.
+``LCGP_TPU_FAST_MATMUL=1`` skips the pin, which allows TF32 — only for
+users who accept ~1e-3 relative error in f32 products.  f64 products are
+unaffected either way.
+
+Compile cache
+-------------
+If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses it and nothing here
+overrides it.  Otherwise compiled executables persist in ``.jax_cache/``
+at the checkout root — a fixed path, since the path is part of what makes
+a later process find the entry.
 """
 from __future__ import annotations
 
@@ -27,15 +44,25 @@ import jax.numpy as jnp
 if not os.environ.get("LCGP_TPU_NO_X64"):
     jax.config.update("jax_enable_x64", True)
 
-# On TPU, f32 matmuls run at DEFAULT precision = bf16 MXU passes (~3
-# decimal digits).  That silently downgrades every raw f32 GEMM in the
-# 'fast' path (chol_inverse's syrk, predict recombinations, blocked
-# trailing updates — measured: bf16-grade Schur updates break the PSD
-# margin of factorization targets and NaN the factor).  Force true-f32
-# matmul semantics; opt back into bf16 speed with LCGP_TPU_FAST_MATMUL=1
-# only if ~1e-3 relative accuracy is acceptable.
+# True f32 GEMMs unless the user allows TF32 (module docstring).
 if not os.environ.get("LCGP_TPU_FAST_MATMUL"):
     jax.config.update("jax_default_matmul_precision", "float32")
+
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def configure_compile_cache():
+    """Point JAX's persistent compile cache at ``COMPILE_CACHE_DIR`` unless
+    ``JAX_COMPILATION_CACHE_DIR`` already names one.  Returns the directory
+    this call set, or None when the environment's choice stands."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    return COMPILE_CACHE_DIR
+
+
+configure_compile_cache()
 
 
 _PRECISION_DTYPES = {

@@ -48,7 +48,7 @@ def minimize_lbfgs(loss_fn: Callable, params0, verbose: bool = False,
     """
     flat0, unravel = ravel_pytree(params0)
     # aux (training tensors) rides as a runtime jit argument, not a traced
-    # closure constant — see fit/auxloss.py for why (HTTP 413 at n=2M)
+    # closure constant — see fit/auxloss.py for why
     fn, aux = split_aux(loss_fn)
     _vg = jax.jit(jax.value_and_grad(
         lambda flat, aux: fn(unravel(flat), aux)))

@@ -6,8 +6,8 @@ lcgp.py:554-630); see DESIGN.md for the eigh→Cholesky reformulation (values
 agree to fp tolerance; the decompositions differ but every term is
 basis-invariant).
 
-TPU-native structure: the per-component loop becomes a (q,n,n) Gram stack
-plus batched Cholesky/solves — no Python-level q loop, no joblib.
+Structure: the per-component loop becomes a (q,n,n) Gram stack plus
+batched Cholesky/solves — no Python-level q loop, no joblib.
 """
 from __future__ import annotations
 
@@ -42,21 +42,17 @@ def _factor_solve_vec(L, B, v, compute_dtype):
 def _factor_inverse(L, compute_dtype):
     """(L L^T)^{-1} for the loss VJPs.
 
-    Mixed-path design point (round 3, re-measured): every f64 Newton/
-    refinement GEMM on the (q,n,n) stack costs ~1.9 s at the headline
-    config while the whole f64 eval is 11.7 s — an f64-grade backward
-    inverse can never make 'mixed' meaningfully faster than 'high'.  So
     'mixed' = f64-grade LOSS (refined forward — line searches see true
     f64 objective resolution) + f32-grade GRADIENTS: the bwd inverse is
-    the f32 potri seed alone (error ~eps32*cond)."""
+    the f32 potri seed alone (error ~eps32*cond), because f64 Newton
+    steps on the inverse would cost as much as the f64 path they are
+    meant to undercut."""
     if mixed_ops.is_mixed(compute_dtype):
         # seed-only: the gradient's error floor is set by the f32
         # contraction passes (Cbar/gram_vjp), which Newton steps on the
-        # inverse cannot lower — measured: escalated Newton changed the
-        # high-conditioning gradient error not at all while costing
-        # ~2 s/step of f64 GEMMs.  'mixed:N' escalation therefore
-        # tightens only the FORWARD refinement (the loss, which has the
-        # 1e-8 criterion).
+        # inverse cannot lower.  'mixed:N' escalation therefore tightens
+        # only the FORWARD refinement (the loss, which has the 1e-8
+        # criterion).
         return mixed_ops.chol_inverse_from_factor_mixed(L, newton_steps=0)
     return linalg.chol_inverse(L)
 
@@ -64,20 +60,16 @@ def _factor_inverse(L, compute_dtype):
 def _use_inv_flow(compute_dtype, dt) -> bool:
     """True when the loss terms run the f64 inverse flow.
 
-    f64 (round 5): the forward computes ``Linv = L^{-1}`` explicitly and
-    gets the dual vector by two batched matvecs; the gradient pass (also
-    in the forward — see the gradient-in-forward note below) reuses
-    ``Linv`` so its potri needs only the ``Linv^T Linv`` combination
-    GEMM.  Rationale, measured at the headline config
-    (benchmarks/fwd_stages.py): the 1-rhs ``cho_solve_vec`` is
-    latency-bound substitution at 0.21 s per (5,4096,4096) chunk while
-    the blocked ``tri_inverse_lower`` is 0.09 s, and the gradient pass
-    needs that same triangular inverse anyway.
+    f64: the forward computes ``Linv = L^{-1}`` explicitly and gets the
+    dual vector by two batched matvecs; the gradient pass (also in the
+    forward — see the gradient-in-forward note below) reuses ``Linv`` so
+    its potri needs only the ``Linv^T Linv`` combination GEMM, instead of
+    a latency-bound 1-rhs substitution plus a separate inverse.
 
-    f32 keeps the substitution flow: its native solves are fast, and the
-    potri seed runs at bf16_3x where computing the inverse is cheap.
-    Mixed keeps it too (the refined solve is part of the f64-grade loss
-    contract).
+    f32 keeps the substitution flow.  Mixed keeps it too (the refined
+    solve is part of the f64-grade loss contract).  Both routings were
+    chosen on earlier hardware and are not measured on the H100
+    (ROADMAP Q1.3).
     """
     return (not mixed_ops.is_mixed(compute_dtype)) and dt == jnp.float64
 from . import params as P
@@ -156,21 +148,21 @@ def _map_components(body, stacks, q_chunk):
 #            b^T S b = b^T C u,   dt/dC = 0.5 T - 0.5 u u^T,   dt/db = -C u
 #          (u is also exactly the predictive dual weight vector CinvM).
 #          This form avoids the reference's Woodbury cancellation
-#          (lcgp.py:614-621) — catastrophic under TPU-f64's ~1e-13
-#          effective eps at large fitted amplitudes — and shares one
-#          Cholesky between the loss and the predict path.
+#          (lcgp.py:614-621) — catastrophic at large fitted amplitudes —
+#          and shares one Cholesky between the loss and the predict path.
 #
-# GRADIENT-IN-FORWARD (round 5): each component's output is a scalar, so
-# its cotangent ``tbar_k`` enters every gradient linearly — the whole
+# GRADIENT-IN-FORWARD: each component's output is a scalar, so its
+# cotangent ``tbar_k`` enters every gradient linearly — the whole
 # contraction (inverse assembly, Gram cotangent, kernel VJP) can run in
 # the custom-VJP *forward*, where the Gram's raw correlation stack C0 is
-# still live (gram_vjp's rebuild — d elementwise passes + one emulated-f64
-# exp — is skipped), and the backward is just per-component scaling by
-# tbar.  Residuals shrink from O(q n^2) (the stored factors) to O(q (n+d))
+# still live (gram_vjp's rebuild — d elementwise passes + one exp — is
+# skipped), and the backward is just per-component scaling by tbar.
+# Residuals shrink from O(q n^2) (the stored factors) to O(q (n+d))
 # gradient primitives, so lax.map chunking no longer accumulates (q,n,n)
-# buffers across chunks at all.  For the standard jax.grad/value_and_grad
-# call (tbar = 1) the values are bitwise-identical to contracting in the
-# backward.
+# buffers across chunks at all.  For the full loss under
+# jax.grad/value_and_grad (tbar = 1) the values are bitwise-identical to
+# contracting in the backward; the rep loss divides by n, so its tbar is
+# 1/n and the two forms agree to rounding only.
 # ---------------------------------------------------------------------------
 
 
@@ -183,10 +175,9 @@ def _full_terms(compute_dtype, jitter, kernel, xs, lLmb, lLmb0, lnug, D, a):
 
 def _full_terms_fwd_impl(compute_dtype, jitter, kernel, xs, lLmb, lLmb0,
                          lnug, D, a, want_grad: bool = False):
-    # Build the factorization target B = D C + (1+jitter) I directly (fused
-    # Pallas epilogue on the f32 TPU path); C itself is never materialized —
-    # the quad term uses the exact identity C w = (a - (1+jitter) w) / D
-    # from B w = a.
+    # Build the factorization target B = D C + (1+jitter) I directly; C
+    # itself is never materialized — the quad term uses the exact identity
+    # C w = (a - (1+jitter) w) / D from B w = a.
     n = xs.shape[0]
     dt = jnp.asarray(xs).dtype if (compute_dtype is None or
                                mixed_ops.is_mixed(compute_dtype)) \
@@ -273,8 +264,8 @@ def _rep_terms_fwd_impl(compute_dtype, jitter, kernel, xs, sr, lLmb, lLmb0,
     # jitter scaled by the amplitude so the f32 path stays factorizable
     jit_d = jitter * (1.0 + lLmb0.astype(dt)[:, None])
     diag_vec = lam + jnp.broadcast_to(jit_d, lam.shape)
-    # A = C + diag(lam + jit) built directly (fused Pallas epilogue on the
-    # f32 TPU path); C u recovers via C u = lam b - (lam + jit) u from A u.
+    # A = C + diag(lam + jit) built directly; C u recovers via
+    # C u = lam b - (lam + jit) u from A u.
     ones = jnp.ones_like(Dc)
     built = gram_factor_target(xs, lLmb, lLmb0, lnug, row_scale=ones,
                                diag_vec=diag_vec, compute_dtype=compute_dtype,

@@ -19,13 +19,12 @@ Memory-bounded chunking (q_chunk): unlike the losses — whose lax.map chunking
 must live *inside* the one program the optimizer loop jits — the aux/predict
 cores are dispatched from the host, so chunking here is a Python loop over a
 single per-chunk compiled program (traced component offset, so every chunk
-hits the same executable) with device-side concatenation.  This also
-sidesteps an XLA-TPU layout pathology observed with the lax.map form: the
-while-loop accumulator for a stacked (chunks, qc, n, n) output propagated a
-batch-minor layout into the loop body, tile-padding every (qc, n, n)
-temporary by 128/qc (measured 25.6x at qc=5, n=4096 f64 — a 111 GB
-compile-time HBM demand for a 4.7 GB working set).  Under an outer trace
-(e.g. the serving fused executable) the host loop simply unrolls.
+hits the same executable) with device-side concatenation.  The lax.map form
+was dropped because its while-loop accumulator for a stacked
+(chunks, qc, n, n) output let XLA pick a batch-minor layout that padded
+every (qc, n, n) temporary; not re-measured on the H100 (ROADMAP Q1.3).
+Under an outer trace (e.g. the serving fused executable) the host loop
+simply unrolls.
 """
 from __future__ import annotations
 
@@ -249,15 +248,13 @@ def compute_aux_rep(free: P.FreeParams, data: RepData,
 
     The reference computes the dual weights by Woodbury cancellation,
     ``CinvM = b - d R m`` (lcgp.py:781) — numerically catastrophic when the
-    fitted amplitude is large and the arithmetic isn't true f64 (TPU f64
-    emulation has effective eps ~1e-13; observed 20x prediction error at
-    n=1000, amp~3e3).  The identity
+    fitted amplitude is large (the cancellation loses ~log10(amp * n)
+    digits).  The identity
 
         (I + D R C)^{-1} b  =  (C + (D R)^{-1})^{-1} (D R)^{-1} b
 
     turns it into one cancellation-free solve against the same
-    ``C + diag(1/(D r))`` factor the variances need — one Cholesky total,
-    and bitwise-stable on TPU.
+    ``C + diag(1/(D r))`` factor the variances need — one Cholesky total.
     """
     q = int(data.phi.shape[1])
     offsets = _chunk_slices(q, q_chunk)

@@ -1,7 +1,7 @@
 """FITC/Nyström inducing-point path for n >> 10^4.
 
 The reference drafted and abandoned a Nyström sparse kernel (dead code at
-reference covmat.py:57-93); this is the working TPU-native equivalent.
+reference covmat.py:57-93); this is the working equivalent.
 
 Both exact losses share one algebraic core per component (likelihood.py):
 

@@ -1,25 +1,13 @@
 """Gram-stack construction and its analytic VJP.
 
-All paths are jnp: XLA's elementwise fusion of the batched Matérn build
-is at parity with a hand-written Pallas kernel on TPU, so no custom
-kernel ships.  The decision trail (round 1-2, v5e, headline config
-n=4096/p=1000/q=20/d=8, f32):
-
-- round 1 kernel: 18.1 ms vs 10.4 ms jnp for the forward stack (the
-  kernel wasted ~35% compute on q-block padding, q=20 -> 27);
-- round 2: padding fixed (exact-divisor q-blocks) and the factorization
-  target B = scale*C + diag(v) fused into the kernel epilogue — and the
-  *end-to-end loss eval still tied XLA exactly* (264.2 ms jnp vs 265.0 ms
-  Pallas, identical loss/grad), because the Gram is <10% of an eval and
-  XLA already fuses the d-loop, exp, and diagonal epilogue into one pass.
-
-Per that measurement the kernel was deleted (it also had an unresolved
-v5e worker crash in the rectangular cross-Gram mode).  What survives is
-the *algebraic* fusion it motivated: `gram_factor_target` builds the
-factorization target directly, and the loss forwards recover C-products
-from solve identities, so C is never materialized separately from B.
-The hot ops on TPU are the batched factorizations (ops/linalg,
-ops/mixed), not the Gram build.
+All paths are jnp: XLA fuses the d-loop, the exp and the diagonal
+epilogue of the batched Matérn build into one elementwise pass, and a
+hand-written kernel for it (since deleted) tied that end to end on earlier
+hardware; the Gram build is not measured on the H100 yet (ROADMAP Q1.2).
+What survives of that kernel is the *algebraic* fusion it motivated:
+`gram_factor_target` builds the factorization target directly, and the
+loss forwards recover C-products from solve identities, so C is never
+materialized separately from B.
 """
 from __future__ import annotations
 
@@ -35,15 +23,15 @@ def gram_stack(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
 
     kind='matern32' (the reference's kernel, default) or 'rbf' (separable
     squared-exponential extra).  compute_dtype=None keeps the input dtype
-    (float64 parity path); jnp.float32 selects the fast MXU path; the
+    (float64 parity path); jnp.float32 selects the fast f32 path; the
     'mixed' sentinel builds in f64 (factorizations downstream switch to
     ops/mixed).
 
     want_c0=True additionally returns the kernel's raw correlation stack
     (before the nugget/amplitude epilogue) for reuse by :func:`gram_vjp` —
     the custom-VJP losses compute their gradient contractions in the
-    forward where C0 is live, skipping the rebuild (its exp is the
-    expensive part under emulated f64).
+    forward where C0 is live, skipping the rebuild (d elementwise passes
+    and one exp over the (q, n, n) stack).
     """
     from .mixed import is_mixed
     if is_mixed(compute_dtype):
@@ -57,7 +45,7 @@ def gram_stack(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
         nuggets = jnp.asarray(nuggets, dtype=dt)
 
     if kind == 'rbf':
-        # SE factors through a batched MXU matmul; XLA is already optimal
+        # SE factors through a batched matmul
         from .rbf import rbf_gram
         return rbf_gram(x1, x2, lengthscales, amplitudes, nuggets, same=same,
                         want_c0=want_c0)

@@ -1,9 +1,14 @@
 """Batched Cholesky primitives shared by the likelihood and predict paths.
 
 All functions operate on a leading component/batch axis so XLA runs them as
-batched linalg on the MXU — this replaces both the reference's per-k Python
-loops (reference lcgp.py:605, 650) and its joblib thread fan-out
+batched linalg — this replaces both the reference's per-k Python loops
+(reference lcgp.py:605, 650) and its joblib thread fan-out
 (lcgp.py:718-720, 792-794).
+
+The blocked factorization, the blocked triangular inverse and the strip-
+structured products below, their block sizes and the f64-only routing of
+``cholesky`` were chosen by timings on earlier hardware; none is measured
+on the H100 yet (ROADMAP Q1.3).  They are correct on any backend.
 """
 from __future__ import annotations
 
@@ -25,13 +30,9 @@ def add_diag(mats, vals):
 def cholesky(mats):
     """Batched lower Cholesky.
 
-    f64 routes through :func:`cholesky_blocked` — XLA's native Cholesky
-    serializes on its fine-grained panel loop, catastrophically so in
-    emulated f64 (round-5 profile: the forward factorization was 10.1 s of
-    the 11.36 s/eval at the headline n=4096, q=20 config).  f32 keeps XLA's
-    native factorization: its panel loop runs at full f32 rate and beat the
-    blocked GEMM form in the round-2 A/B (75 vs 89.5 ms at the same config;
-    benchmarks/blocked_chol.py)."""
+    f64 routes through :func:`cholesky_blocked`, f32 through XLA's native
+    factorization — a split chosen on earlier hardware, not measured on the H100
+    (ROADMAP Q1.3)."""
     if mats.dtype == jnp.float64:
         return cholesky_blocked(mats)
     return jnp.linalg.cholesky(mats)
@@ -43,10 +44,8 @@ _CHOL_BLOCK = 512
 def cholesky_blocked(A, block: int | None = None):
     """Batched lower Cholesky via right-looking block factorization.
 
-    XLA's ``cholesky`` runs a fine-grained panel loop whose per-step
-    triangular work cannot tile onto the MXU; in emulated f64 it dominates
-    a loss evaluation.  This variant does the O(n^3) work as batched GEMMs
-    on the MXU's emulated-f64 path (measured ~0.3-1.4 TFLOP/s) instead:
+    Does the O(n^3) work as batched GEMMs instead of XLA's fine-grained
+    panel loop:
 
       for each nb-block:  Lkk   = chol(trail[:nb, :nb])   (small, batched)
                           panel = trail[nb:, :nb] Lkk^{-T} (one GEMM)
@@ -55,13 +54,10 @@ def cholesky_blocked(A, block: int | None = None):
     The trailing update is one square GEMM per block step on a functionally
     SHRINKING trailing matrix, and the factor is assembled by concatenation.
     This costs 2n^3/3 GEMM flops — 2x the strip-triangular-update Cholesky
-    count — but every in-place formulation measured worse: `.at[].set`
-    panel updates on the full (q,n,n) buffer make XLA materialize
-    whole-buffer copies per step (round-2 finding, f32_breakdown.py), and a
-    strip-GEMM `.at[].add` variant with the ideal n^3/3 count stalled the
-    remote compile for 30+ minutes at the headline config (round 5).  The
-    2x flops are noise: at 1.4 TFLOP/s the trailing GEMMs cost ~0.2 s per
-    (5,4096,4096) chunk vs the ~10 s XLA factorization they replace.
+    count — because in-place formulations (`.at[].set` panel updates on the
+    full (q,n,n) buffer) made XLA materialize whole-buffer copies per step.
+    The form and ``_CHOL_BLOCK`` were chosen on earlier hardware, not measured
+    on the H100 (ROADMAP Q1.3).
 
     Values agree with ``jnp.linalg.cholesky`` to the factorization's
     backward error (same algorithm at block granularity).  Non-block-
@@ -122,8 +118,9 @@ def cholesky_tri_inverse(A, block: int | None = None):
     same blocks (8 batched triangular solves at the headline config).
     This fusion factors once, keeps those inverses, and runs only the
     off-diagonal combination GEMMs of the blocked triangular inversion.
-    Non-f64 dtypes and small n fall back to the unfused pair (XLA's
-    native Cholesky wins there — see :func:`cholesky`)."""
+    Non-f64 dtypes and small n fall back to the unfused pair (see
+    :func:`cholesky`).  Chosen on earlier hardware; not measured on the H100
+    (ROADMAP Q1.3)."""
     n = A.shape[-1]
     nb = block or _CHOL_BLOCK
     if A.dtype != jnp.float64 or n < 2 * nb:
@@ -171,12 +168,15 @@ def cho_solve_vec(chols, vecs):
 
 _TRI_INV_BLOCK = 512
 
-# Precision for the f32 inverse-combination GEMMs: bf16_3x MXU passes
-# (~1e-6 relative — plenty for the gradient-path inverse these feed) at
-# ~2x the true-f32 (6-pass) rate.  NOT used for factorization updates,
-# where bf16-grade error breaks PSD margins (see config.py).  f64 inputs
-# ignore the setting (f64 matmul is its own emulation path).
-_INV_GEMM_PRECISION = lax.Precision.HIGH
+# Precision for the f32 inverse-combination GEMMs of the gradient path.
+# On an H100, XLA runs an f32 matmul at Precision.HIGH in TF32 (relative
+# error 2.9e-4 on a 4096^2 product, the same as DEFAULT; HIGHEST: 1.1e-6).
+# At the headline config HIGH raised the 'fast' gradient's error against
+# f64 from 1.5e-6 to 2.5e-5 — 16x what true-f32 GEMMs hold — for a
+# warm loss+grad of 0.069 s instead of 0.092 s (one call each, H100 at
+# 700 W).  HIGHEST keeps them true f32; chip_smoke.py's 'fast' gradient
+# tolerance (1e-5) holds the path to it.  f64 inputs ignore the setting.
+_INV_GEMM_PRECISION = lax.Precision.HIGHEST
 
 
 def _inv_mm(a, b):
@@ -186,12 +186,11 @@ def _inv_mm(a, b):
 def tri_inverse_lower(chols):
     """L^{-1} for lower-triangular L, batched.
 
-    For large f64 problems a blocked algorithm (invert the diagonal
-    blocks, combine off-diagonal blocks with GEMMs) is ~2.2x faster than
-    XLA's triangular_solve-against-identity on TPU (90 vs 200 ms at
-    n=4096 f64), because the combination step rides the emulated-f64 GEMM
-    path instead of the slow blocked substitution.  Values agree to the
-    f64 roundoff of the accumulation order.
+    Blocked: invert the diagonal blocks, combine the off-diagonal blocks
+    with GEMMs, instead of one triangular_solve against the identity.
+    Values agree to the roundoff of the accumulation order.  The blocked
+    form and ``_TRI_INV_BLOCK`` were chosen on earlier hardware, not measured
+    on the H100 (ROADMAP Q1.3).
     """
     n = chols.shape[-1]
     nb = _TRI_INV_BLOCK
@@ -271,9 +270,8 @@ def syrk_tri_lower(L, precision=None):
     blocking is done here: block-column j of the result's lower triangle is
     one GEMM ``L[jb:, :w] @ L[jb:jb+nb, :w]^T`` with contraction width
     w = (j+1)*nb (columns of L beyond w are zero in both operands), and the
-    symmetric full matrix is assembled from the strips.  On TPU this is the
-    difference between the emulated-f64 GEMM tax being paid 6x or 1x —
-    the mixed-precision refinement residual (ops/mixed.cholesky_mixed) is
+    symmetric full matrix is assembled from the strips.  The
+    mixed-precision refinement residual (ops/mixed.cholesky_mixed) is
     exactly this product.  Non-block-divisible n is zero-padded to the
     next block multiple (see ``_pad_nn``); only n < 2 blocks falls back to
     the dense matmul (small-n parity configs, where the strips would
@@ -415,14 +413,11 @@ def mul_lower_lower(A, B, precision=None):
 def chol_inverse(chols):
     """(L L^T)^{-1} as Linv^T Linv with Linv = L^{-1} (LAPACK potri shape).
 
-    One triangular inverse + one (MXU) symmetric matmul instead of the two
-    chained triangular solves of ``cho_solve(L, I)`` — measured 1.8x faster
-    on TPU in emulated f64 at n=4096 (136 vs 247 ms per component), where
-    the GEMM runs at ~1.4 TFLOP/s but triangular solves crawl.  In f32
-    this was the whole backward's bottleneck at true-f32 GEMM precision
-    (120 of 190 ms/eval net); the bf16_3x combination GEMMs halve it.
-    The combination itself exploits Linv's triangularity
-    (``gram_tri_lower``: n^3/3 flops instead of the dense 2n^3).
+    One triangular inverse + one symmetric matmul instead of the two
+    chained triangular solves of ``cho_solve(L, I)`` — a choice made on
+    earlier hardware, not measured on the H100 (ROADMAP Q1.3).  The combination exploits
+    Linv's triangularity (``gram_tri_lower``: n^3/3 flops instead of the
+    dense 2n^3).
     """
     linv = tri_inverse_lower(chols)
     return gram_tri_lower(linv, precision=_INV_GEMM_PRECISION)

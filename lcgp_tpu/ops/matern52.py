@@ -11,7 +11,7 @@ with the reference's nugget/amplitude semantics (SURVEY §3.5.9):
 ``eta = lnug/(1+lnug)``; ``amp * ((1-eta) C0 + eta I)`` when x1 ≡ x2,
 ``amp * (1-eta) C0`` for cross-covariances; prior variance is ``amp``.
 
-Same TPU structure as ops/matern.py: the static d-loop accumulates the
+Same structure as ops/matern.py: the static d-loop accumulates the
 per-dimension polynomial product and the |u-v| sum so XLA fuses
 everything into one elementwise pass over the (q, n1, n2) tile.
 """

@@ -1,11 +1,10 @@
-"""Mixed-precision factorization: f32 MXU compute + f64 refinement.
+"""Mixed-precision factorization: f32 compute + f64 refinement.
 
-TPU has no f64 ALU; XLA emulates f64 throughout.  Measured at n=4096 the
-emulation tax is wildly uneven: GEMM runs at ~1.4 TFLOP/s (~3x slower
-than f32) but Cholesky is ~48x slower and triangular solves ~20x slower
-than their f32 counterparts.  The classic mixed-precision recipe exploits
-exactly this: factor in f32 (cheap), then recover f64 accuracy with a
-Newton-type correction whose only heavy ops are f64 GEMMs.
+The classic mixed-precision recipe: factor in f32, then recover f64
+accuracy with a Newton-type correction whose only heavy ops are f64 GEMMs.
+It pays where f64 factorizations and triangular solves are far slower than
+f64 GEMMs, which was the case on the hardware this layer was built for;
+whether it pays on the H100 is not measured yet (ROADMAP Q1.4).
 
 Cholesky refinement (one step):
     L0 = chol_f32(B)
@@ -79,19 +78,15 @@ def cholesky_mixed(B, refine_steps: int = 2, seed_jitter: float = 0.0):
     for _ in range(refine_steps):
         # exact residual: the one f64 product per step.  L is lower
         # triangular, so the structured syrk costs n^3/3 flops instead of
-        # the dense 2n^3 XLA would emit — the emulated-f64 GEMM is the
-        # whole step's cost, making this the mixed path's hottest op.
+        # the dense 2n^3 XLA would emit.
         R = B - linalg.syrk_tri_lower(L)               # f64 strip GEMMs
         L32 = L.astype(jnp.float32)
         # X = L^{-1} R L^{-T} via the GEMM-blocked triangular inverse, NOT
         # two n-RHS triangular solves: XLA's TriangularSolveExpander
         # unrolls an n/128-step blocked substitution whose partial-update
-        # buffers stay live simultaneously — measured 33.25 GB HBM (vs
-        # 15.75 GB capacity) for the mixed loss+grad at n=12288, q=2,
-        # q_chunk=1, where ~90 shrinking f32[~n, n] DUS temps dominated
-        # the allocation dump.  M is one f32 n^2 buffer, the correction
-        # GEMMs ride the MXU, and every one of them exploits triangular
-        # structure (f32 rounding on X is second-order in the refinement
+        # buffers can stay live simultaneously (an out-of-memory at
+        # n=12288 on earlier hardware).  M is one f32 n^2 buffer, and
+        # every correction GEMM exploits triangular structure (f32 rounding on X is second-order in the refinement
         # either way):  M @ R is a trmm (n^3 vs 2n^3); only tril(X) is
         # ever read (the projector), so the right product fills just the
         # block-lower triangle (n^3/3); L @ Phi(X) is lower x lower
@@ -126,19 +121,14 @@ def chol_inverse_from_factor_mixed(L64, newton_steps: int = 1):
 
     Seeds with the f32 potri inverse of the factor's f32 cast, then runs
     Newton/Hotelling-Bodewig steps X <- X (2I - B X) with B applied as
-    L (L^T X) — three f64 GEMMs per step, no B reconstruction.  On TPU
-    the f64 GEMMs run ~4x faster than the f64 blocked triangular
-    inverse + syrk of ``linalg.chol_inverse`` (the emulated-f64 GEMM is
-    the one fast f64 op), which is what makes the mixed *backward* pay:
-    the loss VJPs' inverse is the dominant f64 op after the forward is
-    refined (VERDICT r2 weak #4).
+    L (L^T X) — three f64 GEMMs per step, no B reconstruction.
 
     The residual contracts quadratically from e0 ~ eps32*cond: one step
     reaches ~e0^2 (f64 floor for cond <~ 1e3), two steps ~e0^4 (floor for
     cond <~ 3e5).  newton_steps=0 returns the f32 potri seed cast to the
     factor dtype (error ~eps32*cond) — the 'mixed' default: gradients at
-    f32 grade, since each f64 Newton GEMM costs ~1.9 s at the headline
-    config while the entire f64 eval is 11.7 s.  The likelihood VJPs
+    f32 grade, since f64 Newton GEMMs on the (q, n, n) stack would cost as
+    much as the f64 path.  The likelihood VJPs
     always use newton_steps=0 (the f32 contraction passes downstream set
     the gradient's error floor anyway — Newton on the inverse cannot
     lower it); 'mixed:N' escalation tightens the FORWARD refinement

@@ -9,10 +9,10 @@ Nugget/amplitude semantics follow the reference's Matérn rules exactly
 when x1 ≡ x2, ``amp * (1-eta) C0`` for cross-covariances; prior variance
 (diag) is just ``amp``.
 
-TPU mapping: unlike the |u−v| product form, the SE exponent factors through
-a Gram matmul — ``‖u−v‖² = ‖u‖² + ‖v‖² − 2 u·v`` — so the hot op IS a
-(q,n,d)×(q,d,n) batched matmul on the MXU; XLA fuses the rank-1 corrections
-and the exp.  No Pallas needed to hit bandwidth here.
+Unlike the |u−v| product form, the SE exponent factors through a Gram
+matmul — ``‖u−v‖² = ‖u‖² + ‖v‖² − 2 u·v`` — so the hot op is a
+(q,n,d)×(q,d,n) batched matmul; XLA fuses the rank-1 corrections and the
+exp.
 """
 from __future__ import annotations
 
@@ -37,10 +37,10 @@ def rbf_gram(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
     u1 = x1[None, :, :] * inv_l[:, None, :]         # (q, n1, d)
     u2 = x2[None, :, :] * inv_l[:, None, :]         # (q, n2, d)
 
-    # squared distances via the MXU: |u|^2 + |v|^2 - 2 u v^T
+    # squared distances via one batched matmul: |u|^2 + |v|^2 - 2 u v^T
     sq1 = jnp.sum(u1 * u1, axis=-1)                 # (q, n1)
     sq2 = jnp.sum(u2 * u2, axis=-1)                 # (q, n2)
-    cross = jnp.einsum('qnd,qmd->qnm', u1, u2)      # (q, n1, n2) — MXU
+    cross = jnp.einsum('qnd,qmd->qnm', u1, u2)      # (q, n1, n2)
     d2 = sq1[:, :, None] + sq2[:, None, :] - 2.0 * cross
     d2 = jnp.maximum(d2, 0.0)                       # clamp fp cancellation
     c0 = jnp.exp(-0.5 * d2)

@@ -1,15 +1,15 @@
 """Multi-chip sharding (SURVEY §2.3).
 
 The reference's only intra-model concurrency is joblib threading over the q
-independent latent components (reference lcgp.py:718-720, 792-794).  The
-TPU-native mapping is a 2-D device mesh:
+independent latent components (reference lcgp.py:718-720, 792-794).  Here
+it is a 2-D device mesh:
 
 - axis ``'comp'`` shards the q component stack — each device factorizes its
   own slice of the (q,n,n) Gram/Cholesky stack (the per-k linalg is
   embarrassingly parallel, exactly what joblib exploited on CPU threads);
 - axis ``'out'`` shards the p output axis of Y/phi — the p-contractions
   (``Y^T (phi/sigma)`` and the diagonal data terms) become XLA all-reduces
-  over ICI.
+  over the device interconnect.
 
 No explicit collectives: parameters/data are placed with NamedSharding and
 GSPMD propagates, inserting psums where the q/p reductions need them.

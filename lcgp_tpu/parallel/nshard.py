@@ -10,7 +10,7 @@ longer fits one chip.  This module shards the *design-point* axis n:
 - a ScaLAPACK-style right-looking blocked Cholesky runs over the block
   rows inside ``shard_map``, with exactly two small collectives per panel
   step (a psum of the (q, nb, nb) diagonal block and an all_gather of the
-  panel column) riding ICI;
+  panel column) over the device interconnect;
 - blocked forward/back substitution (single- and multi-RHS) and the
   logdet come from the same distributed factor;
 - :func:`neglpost_full_nsharded` / :func:`neglpost_rep_nsharded` evaluate
@@ -75,9 +75,9 @@ def make_nc_mesh(n_comp: int, n_n: int, devices=None) -> Mesh:
     """2-D ('comp','n') mesh: q components sharded over 'comp' groups,
     each group running the n-sharded algorithm over its 'n' submesh.
 
-    'comp' is the outer axis so each group's 'n' devices are contiguous —
-    the heavy collectives (panel all_gathers, row psums) ride neighboring
-    ICI links while 'comp' needs no collectives at all."""
+    'comp' is the outer axis, so each group's 'n' devices are consecutive
+    in device order; the heavy collectives (panel all_gathers, row psums)
+    stay inside a group while 'comp' needs no collectives at all."""
     devices = list(jax.devices()) if devices is None else list(devices)
     if len(devices) < n_comp * n_n:
         raise ValueError(f'need {n_comp * n_n} devices, have {len(devices)}')

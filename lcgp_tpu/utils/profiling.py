@@ -5,10 +5,12 @@ profiling — only wall-clock prints in example scripts).
 - ``trace``: context manager around jax.profiler for TensorBoard traces.
 - ``log_compiles``: context manager that surfaces recompilation events —
   the practical observability tool for shape-stability bugs.
+- ``gpu_card``: the GPU's name and power limit, as nvidia-smi reports them.
 """
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Callable
 
@@ -49,3 +51,16 @@ def log_compiles():
     """Log every XLA compilation inside the block (recompile detector)."""
     with jax.log_compiles():
         yield
+
+
+def gpu_card() -> str:
+    """``name, power.limit`` of the GPU(s), one line per card, read by
+    nvidia-smi in a child process that never imports JAX (so it takes no
+    share of the card).  Raises when nvidia-smi is missing or fails.
+    A card set below its top power limit runs matrix-heavy work slower, so
+    every timing is reported beside this line."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()

@@ -1,14 +1,11 @@
-"""The driver benchmark entry must ALWAYS print one parseable JSON line.
+"""The benchmark entry must ALWAYS print one parseable JSON line.
 
-Round 3's scoreboard failure (BENCH_r03.json rc=1, parsed null) came from
-bench.py surfacing a backend-init traceback instead of a degraded JSON
-line.  These tests pin the contract: whatever goes wrong — probe failure,
-mid-run exception — stdout's last line parses as JSON with the metric/
-value/unit/vs_baseline keys the driver records.
+Whatever goes wrong — no GPU, a mid-run exception — stdout's last line
+parses as JSON with the metric/value/unit/vs_baseline keys and every
+section that completed, and the process exits non-zero.
 """
 import json
 import os
-import signal
 import sys
 
 import pytest
@@ -44,36 +41,52 @@ def test_degraded_line_is_parseable(capsys):
 
 @pytest.mark.quick
 def test_degraded_line_carries_partial_results(capsys):
-    """A watchdog/late failure must not discard sections that completed:
-    the degraded line reports the measured f64 number, not 0.0."""
+    """A late failure must not discard sections that completed: the
+    degraded line reports the measured f64 number, not 0.0."""
     bench.PARTIAL.update(secs64=2.0, chunk64=5, device='test')
-    bench._degraded('watchdog: hung in the rep section')
+    bench._degraded('failed in the rep section')
     obj = _last_json_line(capsys.readouterr().out)
     assert obj['value'] == 0.5
     assert obj['secs_per_eval_f64'] == 2.0
     assert obj['q_chunk_f64'] == 5
     if obj.get('baseline_cpu_evals_per_sec'):
         assert obj['vs_baseline'] > 0
-    assert 'watchdog' in obj['error']
+    assert 'rep section' in obj['error']
 
 
 @pytest.mark.quick
-def test_main_degrades_on_probe_failure(monkeypatch, capsys):
-    """main() with an unreachable backend prints the degraded line (and
-    exits cleanly) rather than raising — the round-3 rc=1 regression."""
-    monkeypatch.setattr(bench, '_probe_backend',
-                        lambda *a, **k: 'backend init hung (simulated)')
-    try:
+def test_main_exits_nonzero_on_section_failure(monkeypatch, capsys):
+    """A section that raises: main() still prints the line with the
+    sections that completed, then exits non-zero (never rc 0 after a
+    caught failure)."""
+    device = dict(platform='gpu', device_kind='Fake GPU', count=1,
+                  card='Fake GPU, 700.00 W')
+
+    def run():
+        bench.PARTIAL.update(secs64=4.0, chunk64=5)
+        raise RuntimeError('rep section exploded')
+
+    monkeypatch.setattr(bench, '_device', lambda: device)
+    monkeypatch.setattr(bench, '_run', run)
+    with pytest.raises(SystemExit) as exc:
         bench.main()
-    finally:
-        # main() arms a SIGALRM watchdog for its normal process lifetime;
-        # inside pytest the process lives on, so disarm it.
-        if hasattr(signal, 'SIGALRM'):
-            signal.alarm(0)
-            signal.signal(signal.SIGALRM, signal.SIG_DFL)
+    assert exc.value.code != 0
+    obj = _last_json_line(capsys.readouterr().out)
+    assert obj['value'] == 0.25
+    assert obj['device'] == device
+    assert 'rep section exploded' in obj['error']
+
+
+@pytest.mark.quick
+def test_main_refuses_a_non_gpu_device(capsys):
+    """The suite runs on the CPU: main() must fail there rather than
+    time the CPU backend under a device metric's name."""
+    with pytest.raises(SystemExit) as exc:
+        bench.main()
+    assert exc.value.code != 0
     obj = _last_json_line(capsys.readouterr().out)
     assert obj['value'] == 0.0
-    assert 'backend unavailable' in obj['error']
+    assert 'not a GPU' in obj['error']
 
 
 @pytest.mark.quick

@@ -462,7 +462,7 @@ class TestMixedBackwardAndEscalation:
         """The f32-grade mixed gradient must stay within ~1% of f64 even
         at amplitudes near the SoftClip ceiling (the escalation path
         tightens the forward/loss, which carries the 1e-8 criterion —
-        validated on TPU by benchmarks/validate_mixed.py)."""
+        benchmarks/validate_mixed.py checks it at the headline configs)."""
         import jax.numpy as jnp
         from lcgp_tpu.models import params as Pm
         data, free, *_ = _full_setup(21, 48, 2, 4)

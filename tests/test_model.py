@@ -4,6 +4,7 @@ training/prediction flows — ported from the reference's test strategy
 test_coverage_gaps.py)."""
 import copy
 
+import jax
 import numpy as np
 import pytest
 
@@ -260,6 +261,18 @@ class TestPredictBatching:
             m.predict(x, batch_size=4, return_fullcov=True)
 
 
+class _FakeGPU:
+    """Stands in for a CUDA device in the memory planner's probe."""
+    platform = 'gpu'
+    device_kind = 'Fake GPU'
+
+    def __init__(self, bytes_limit):
+        self._limit = bytes_limit
+
+    def memory_stats(self):
+        return {'bytes_limit': self._limit}
+
+
 class TestAutoQChunk:
     def test_small_problem_unchunked(self):
         import numpy as np
@@ -270,7 +283,7 @@ class TestAutoQChunk:
 
     def test_headline_scale_matches_measured_feasible(self):
         from lcgp_tpu.models.lcgp import LCGP
-        # measured on v5e: f64 q_chunk=5 feasible (10 is not), f32 10 is
+        # the fixed 10 GB CPU budget under the (8*qc + q) n^2 peak model
         assert LCGP._auto_q_chunk(20, 4096, 'high') == 5
         assert LCGP._auto_q_chunk(20, 4096, 'fast') == 10
         assert LCGP._auto_q_chunk(20, 4096, 'mixed') == 5
@@ -298,43 +311,60 @@ class TestAutoQChunk:
         assert LCGP._auto_q_chunk(20, 4096, 'high') == 1
 
     def test_probed_memory_stats_budget(self, monkeypatch):
-        """A device advertising a larger bytes_limit (e.g. v4's 32 GB)
-        gets a proportionally larger budget — auto-chunking adapts to
-        non-15.75GB parts by construction."""
-        import jax
+        """A GPU advertising a bytes_limit gets a proportional budget —
+        auto-chunking adapts to the device's memory by construction."""
         from lcgp_tpu.models.lcgp import LCGP
 
-        class FakeDev:
-            platform = 'tpu'
-            device_kind = 'FakeTPU'
-
-            @staticmethod
-            def memory_stats():
-                return {'bytes_limit': 31.5e9}
-
         monkeypatch.delenv('LCGP_TPU_HBM_BUDGET_BYTES', raising=False)
-        monkeypatch.setattr(jax, 'local_devices', lambda: [FakeDev()])
+        monkeypatch.setattr(jax, 'local_devices',
+                            lambda: [_FakeGPU(31.5e9)])
         budget = LCGP._hbm_budget_bytes()
         assert budget == LCGP._HBM_BUDGET_FRACTION * 31.5e9   # = 20 GB
         assert LCGP._auto_q_chunk(20, 4096, 'high') == 10
 
-    def test_device_kind_table_fallback(self, monkeypatch):
-        """No memory_stats: the device-kind table supplies the HBM size."""
-        import jax
+    def test_gpu_bytes_limit_sizes_headline_unchunked(self, monkeypatch):
+        """An 80 GB card under JAX's default 75% preallocation reports a
+        ~60 GB bytes_limit; the headline f64 stack's modelled peak
+        (8*20+20)*4096^2*8 = 24.2 GB fits, so the planner picks no
+        chunking."""
         from lcgp_tpu.models.lcgp import LCGP
 
-        class FakeV4:
-            platform = 'tpu'
-            device_kind = 'TPU v4'
+        monkeypatch.delenv('LCGP_TPU_HBM_BUDGET_BYTES', raising=False)
+        monkeypatch.setattr(jax, 'local_devices',
+                            lambda: [_FakeGPU(0.75 * 79.6e9)])
+        assert LCGP._q_peak_bytes(20, 20, 4096, 'high') == \
+            pytest.approx(24.16e9, rel=1e-3)
+        assert LCGP._auto_q_chunk(20, 4096, 'high') is None
+        assert LCGP._auto_q_chunk(20, 8192, 'high') == 5
 
-            @staticmethod
-            def memory_stats():
-                return None
+    def test_gpu_bytes_limit_sizes_fitc_stream(self, monkeypatch):
+        """FITC's (q, n, m) panel model against an 80 GB card: n=200,000
+        (measured 33.2 GB compiled) stays un-chunked, n=400,000 streams."""
+        from lcgp_tpu.models.lcgp import LCGP
 
         monkeypatch.delenv('LCGP_TPU_HBM_BUDGET_BYTES', raising=False)
-        monkeypatch.setattr(jax, 'local_devices', lambda: [FakeV4()])
-        assert (LCGP._hbm_budget_bytes()
-                == LCGP._HBM_BUDGET_FRACTION * 32e9)
+        monkeypatch.setattr(jax, 'local_devices',
+                            lambda: [_FakeGPU(0.75 * 79.6e9)])
+        assert LCGP._fitc_peak_bytes(5, 200_000, 512, 'high') > 33.2e9
+        assert LCGP._auto_n_chunk(5, 200_000, 512, 'high') is None
+        assert LCGP._auto_n_chunk(5, 400_000, 512, 'high') == 8192
+
+    @pytest.mark.parametrize('stats', [None, {}, {'bytes_limit': 0}])
+    def test_accelerator_without_bytes_limit_raises(self, monkeypatch,
+                                                     stats):
+        """No reported memory limit on an accelerator is an error — never
+        a guessed size that could OOM or chunk for nothing."""
+        from lcgp_tpu.models.lcgp import LCGP
+
+        dev = _FakeGPU(None)
+        dev.memory_stats = lambda: stats
+        monkeypatch.delenv('LCGP_TPU_HBM_BUDGET_BYTES', raising=False)
+        monkeypatch.setattr(jax, 'local_devices', lambda: [dev])
+        with pytest.raises(RuntimeError, match='bytes_limit'):
+            LCGP._hbm_budget_bytes()
+        # an explicit budget still lets the user proceed
+        monkeypatch.setenv('LCGP_TPU_HBM_BUDGET_BYTES', '20e9')
+        assert LCGP._auto_q_chunk(20, 4096, 'high') == 10
 
     def test_cpu_falls_back_to_default(self):
         """conftest forces CPU: the probe must return the calibrated
@@ -373,7 +403,7 @@ class TestMixedRefineRatchet:
 
 class TestAutoPrecision:
     """precision='auto' policy: 'mixed' at n >= 2048, 'high' below
-    (VERDICT r3 item 6; criterion validated in benchmarks/validate_mixed)."""
+    (criterion validated in benchmarks/validate_mixed)."""
 
     def test_auto_resolves_high_below_threshold(self):
         rng = np.random.default_rng(0)
